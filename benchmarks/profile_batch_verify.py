@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Profile K-proof batched Whisk shuffle verification on the host path
-(VERDICT r3 weak #4: config4 stalled at 1.77x; find where the wall goes).
+"""Profile K-proof batched Whisk shuffle verification (where the wall goes).
 
-Env: K (default 64), ELL (124), MODE (profile|time), WORKERS.
+Env: K (default 64), ELL (124), MODE (profile|time), WORKERS, FORCE_CPU
+(1 pins JAX to the CPU; default 0 runs on the default backend).
 """
 import cProfile
 import io
@@ -15,7 +15,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if os.environ.get("FORCE_CPU", "1") == "1":
+if os.environ.get("FORCE_CPU", "0") == "1":
     jax.config.update("jax_platforms", "cpu")
 
 
@@ -23,16 +23,16 @@ def main():
     K = int(os.environ.get("K", 64))
     ell = int(os.environ.get("ELL", 124))
 
-    from curdleproofs_tpu.curve import G1
-    from curdleproofs_tpu.models.crs import CurdleproofsCrs
-    from curdleproofs_tpu.models.whisk import (
+    from curdleproofs_jax.curve import G1
+    from curdleproofs_jax.models.crs import CurdleproofsCrs
+    from curdleproofs_jax.models.whisk import (
         AreValidWhiskShuffleProofs,
         BLSPubkey,
         GenerateWhiskShuffleProof,
         IsValidWhiskShuffleProof,
         WhiskTracker,
     )
-    from curdleproofs_tpu.utils.rng import ProofRng
+    from curdleproofs_jax.utils.rng import ProofRng
 
     prng = ProofRng(5)
     crs = CurdleproofsCrs.new(ell, 4, prng)

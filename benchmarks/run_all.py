@@ -2,7 +2,7 @@
 """Run the five BASELINE.md benchmark configs and emit a JSON report.
 
   1. ell=60 (n=64) shuffle prove+verify (reference test-vector size)
-  2. standalone MSM sweep n=2^12..2^16, single chip
+  2. standalone MSM sweep n=2^12..2^20, one device
   3. ell=124 (n=128) Whisk-spec shuffle prove+verify, single host
   4. batched verification: K proofs via one aggregated MSM
   5. sharded MSM (points partitioned over available devices)
@@ -20,8 +20,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def build_trackers(ell, rng):
-    from curdleproofs_tpu.curve import G1
-    from curdleproofs_tpu.models.whisk import BLSPubkey, WhiskTracker
+    from curdleproofs_jax.curve import G1
+    from curdleproofs_jax.models.whisk import BLSPubkey, WhiskTracker
 
     gen = G1()
     out = []
@@ -39,12 +39,12 @@ def build_trackers(ell, rng):
 
 
 def bench_shuffle(ell, n_blinders, seed, warm=True):
-    from curdleproofs_tpu.models.crs import CurdleproofsCrs
-    from curdleproofs_tpu.models.whisk import (
+    from curdleproofs_jax.models.crs import CurdleproofsCrs
+    from curdleproofs_jax.models.whisk import (
         GenerateWhiskShuffleProof,
         IsValidWhiskShuffleProof,
     )
-    from curdleproofs_tpu.utils.rng import ProofRng
+    from curdleproofs_jax.utils.rng import ProofRng
 
     rng = ProofRng(seed)
     crs = CurdleproofsCrs.new(ell, n_blinders, rng)
@@ -79,13 +79,13 @@ def bench_msm_sweep(sizes, methods):
 
     import numpy as np
 
-    from curdleproofs_tpu.curve import G1
-    from curdleproofs_tpu.fields import FR_MOD, Fr
-    from curdleproofs_tpu.ops import g1 as og
-    from curdleproofs_tpu.ops import msm as omsm
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
+    from curdleproofs_jax.curve import G1
+    from curdleproofs_jax.fields import FR_MOD, Fr
+    from curdleproofs_jax.ops import g1 as og
+    from curdleproofs_jax.ops import msm as omsm
+    from curdleproofs_jax.ops.fieldspec import ints_to_limbs
 
-    from curdleproofs_tpu.curve import mul_host_batch
+    from curdleproofs_jax.curve import mul_host_batch
 
     out = []
     nmax = max(sizes)
@@ -148,15 +148,15 @@ def bench_msm_sweep(sizes, methods):
 
 
 def bench_batch_verify(ell, n_blinders, k, seed):
-    from curdleproofs_tpu.curve import G1
-    from curdleproofs_tpu.models.crs import CurdleproofsCrs
-    from curdleproofs_tpu.models.shuffle import (
+    from curdleproofs_jax.curve import G1
+    from curdleproofs_jax.models.crs import CurdleproofsCrs
+    from curdleproofs_jax.models.shuffle import (
         CurdleProofsProof,
         VerifierInput,
         shuffle_permute_and_commit_input,
         verify_shuffle_proofs,
     )
-    from curdleproofs_tpu.utils.rng import ProofRng
+    from curdleproofs_jax.utils.rng import ProofRng
 
     rng = ProofRng(seed)
     crs = CurdleproofsCrs.new(ell, n_blinders, rng)
@@ -198,13 +198,13 @@ def bench_batch_verify(ell, n_blinders, k, seed):
 def bench_batch_prove(ell, n_blinders, k, seed):
     """Lockstep batch proving (GenerateWhiskShuffleProofs) vs K sequential
     proofs — SURVEY (2.3 batch parallelism on the PROVING side."""
-    from curdleproofs_tpu.models.crs import CurdleproofsCrs
-    from curdleproofs_tpu.models.whisk import (
+    from curdleproofs_jax.models.crs import CurdleproofsCrs
+    from curdleproofs_jax.models.whisk import (
         GenerateWhiskShuffleProof,
         GenerateWhiskShuffleProofs,
         IsValidWhiskShuffleProof,
     )
-    from curdleproofs_tpu.utils.rng import ProofRng
+    from curdleproofs_jax.utils.rng import ProofRng
 
     rng = ProofRng(seed)
     crs = CurdleproofsCrs.new(ell, n_blinders, rng)
@@ -235,13 +235,13 @@ def bench_sharded_msm(n, seed):
     import jax
     import numpy as np
 
-    from curdleproofs_tpu.curve import G1, mul_host_batch
-    from curdleproofs_tpu.fields import FR_MOD, Fr
-    from curdleproofs_tpu.ops import g1 as og
-    from curdleproofs_tpu.ops import msm as omsm
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
-    from curdleproofs_tpu.parallel.mesh import make_mesh
-    from curdleproofs_tpu.parallel.msm import (
+    from curdleproofs_jax.curve import G1, mul_host_batch
+    from curdleproofs_jax.fields import FR_MOD, Fr
+    from curdleproofs_jax.ops import g1 as og
+    from curdleproofs_jax.ops import msm as omsm
+    from curdleproofs_jax.ops.fieldspec import ints_to_limbs
+    from curdleproofs_jax.parallel.mesh import make_mesh
+    from curdleproofs_jax.parallel.msm import (
         msm_sharded_ladder,
         msm_sharded_stream,
     )
@@ -268,10 +268,8 @@ def bench_sharded_msm(n, seed):
     ]
     mesh = make_mesh(d)
 
-    # the PRODUCTION sharded engine (per-shard routed+sel stream pipeline,
-    # window chunking, in-graph collective window combine): the VERDICT-r3
-    # artifact is its devices=1 overhead vs the unsharded engine on
-    # identical inputs (the two now share the same per-shard device graph)
+    # the sharded stream engine (per-shard host sort, device scan, in-graph
+    # collective window combine) vs the unsharded engine on identical inputs
     rs0 = msm_sharded_stream(pts, scs, mesh=mesh)  # warmup
     t0 = time.time()
     rs1 = msm_sharded_stream(pts, scs, mesh=mesh)

@@ -1,9 +1,9 @@
 /* Native host-side BLS12-381 G1 backend.
  *
- * Role in the framework: the host "L0" curve backend — the TPU-native
- * analog of the reference's py_arkworks_bls12381 Rust/PyO3 wheel
+ * Role in the framework: the host "L0" curve backend — the analog of the
+ * reference's py_arkworks_bls12381 Rust/PyO3 wheel
  * (reference curdleproofs/py_arkworks_bls12381-stubs/__init__.pyi:5-54).
- * The TPU Pallas kernels (curdleproofs_tpu/ops/*) own throughput-critical
+ * The device engines (curdleproofs_jax/ops/*) own throughput-critical
  * large MSMs; this module owns latency-critical small batches (protocol
  * glue at ell=124 scale, window combines, serde, test oracles) where a
  * device dispatch round-trip costs more than the whole computation.
@@ -14,7 +14,7 @@
  * with per-size window choice, batched point compression/decompression
  * (sqrt via a^((p+1)/4), p = 3 mod 4).
  *
- * External byte formats match curdleproofs_tpu.curve: affine points are
+ * External byte formats match curdleproofs_jax.curve: affine points are
  * 96 bytes (x || y, each 48-byte big-endian canonical) plus a 1-byte
  * infinity flag; scalars are 32-byte little-endian canonical integers
  * (< r); compressed points are the 48-byte ZCash encoding.
@@ -224,7 +224,7 @@ static const jpt JINF = {{{0}}, {{0}}, {{0}}};
 static int j_is_inf(const jpt *p) { return fp_is_zero(&p->z); }
 
 /* dbl-2009-l style doubling for a = 0 (2M + 5S) — same formula as the
- * Python oracle in curdleproofs_tpu/curve.py:_jdbl */
+ * Python oracle in curdleproofs_jax/curve.py:_jdbl */
 static void j_dbl(jpt *r, const jpt *p) {
     if (j_is_inf(p)) { *r = JINF; return; }
     fp a, b, c, t, d, e, f, x3, y3, z3, tmp;
@@ -253,7 +253,7 @@ static void j_dbl(jpt *r, const jpt *p) {
 }
 
 /* complete Jacobian addition (handles inf / equal / negated) —
- * add-2007-bl, mirrors curdleproofs_tpu/curve.py:_jadd */
+ * add-2007-bl, mirrors curdleproofs_jax/curve.py:_jadd */
 static void j_add(jpt *r, const jpt *p1, const jpt *p2) {
     if (j_is_inf(p1)) { *r = *p2; return; }
     if (j_is_inf(p2)) { *r = *p1; return; }
@@ -306,8 +306,8 @@ static void j_neg(jpt *r, const jpt *p) {
  * with r = lambda^2 + lambda + 1 (BLS lattice is exact). Scalars split as
  * k = (-1)^neg1 * |k1| + k2*lambda with |k1| < 2^130, 0 <= k2 <= lambda,
  * via Babai rounding c1 = floor((k*(lambda+1) + r/2) / r) (Barrett, shift
- * 2^640, one correction step) — the same construction as the TPU kernels'
- * host decomposition (curdleproofs_tpu/ops/glv.py:127-169). */
+ * 2^640, one correction step) — the same construction as the numpy
+ * decomposition (curdleproofs_jax/ops/glv.py:decompose). */
 
 static const fp FP_BETA_M = {{0xcd03c9e48671f071ULL, 0x5dab22461fcda5d2ULL,
                               0x587042afd3851b95ULL, 0x8eb60ebe01bacb9eULL,
@@ -907,7 +907,7 @@ static PyObject *py_subgroup_check(PyObject *self, PyObject *args) {
 /* glv_decompose_batch(scalars32_le*n) -> (k1_24le*n, neg1_u8*n, k2_24le*n):
  * batched Babai-rounding GLV split k = (-1)^neg1*|k1| + k2*lambda (mod r);
  * |k1| < 2^130, 0 <= k2 <= lambda, each emitted as 3 LE u64 limbs. Host
- * twin of curdleproofs_tpu/ops/glv.py:decompose (the numpy fallback). */
+ * twin of curdleproofs_jax/ops/glv.py:decompose (the numpy fallback). */
 static PyObject *py_glv_decompose_batch(PyObject *self, PyObject *args) {
     Py_buffer bs;
     if (!PyArg_ParseTuple(args, "y*", &bs)) return NULL;
@@ -948,14 +948,14 @@ static PyObject *py_glv_decompose_batch(PyObject *self, PyObject *args) {
 /* ---- streaming-MSM host prep ------------------------------------------
  *
  * One call replacing the numpy chain glv.decompose -> host_digits ->
- * stream_host_prep -> _build_sel on the stream engine's critical path
- * (curdleproofs_tpu/ops/msm.py): GLV split, c-bit digit extraction over
+ * stream_host_prep on the stream engine's critical path
+ * (curdleproofs_jax/ops/msm.py): GLV split, c-bit digit extraction over
  * the doubled [|k1| | k2] lane set, per-window stable counting sort with
- * bucket-boundary ranks read straight off the count prefix, column-major
- * relabel for the device scan layout, and the distinct-rank boundary
- * selection schedule. All O(W*(n + B)) integer passes — milliseconds where
- * the numpy pipeline (argsort + searchsorted + np.unique per window) spent
- * ~100 ms of MSM wall on the 2-core bench host.
+ * bucket-boundary ranks read straight off the count prefix, and the
+ * column-major relabel for the device scan layout. It also still emits a
+ * distinct-rank boundary selection schedule, which the engine no longer
+ * reads. All O(W*(n + B)) integer passes, far cheaper than the numpy
+ * pipeline (argsort + searchsorted per window).
  */
 
 /* digit w (c bits) of a 3x64-limb little-endian value */

@@ -2,7 +2,7 @@
  *
  * CPython C-API extension (no pybind11 dependency). Exposes one function:
  *   keccak_f1600(state: bytes[200]) -> bytes[200]
- * Bit-exact with curdleproofs_tpu/transcript/keccak.py (the portable
+ * Bit-exact with curdleproofs_jax/transcript/keccak.py (the portable
  * fallback); ~100x faster, which matters because Fiat-Shamir challenge
  * generation is the only sequential host hot path in the prover/verifier.
  */

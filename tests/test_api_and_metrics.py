@@ -2,7 +2,7 @@
 
 
 def test_public_api_facade():
-    import curdleproofs_tpu as cp
+    import curdleproofs_jax as cp
 
     # reference facade parity (curdleproofs/__init__.py:1-15)
     for name in (
@@ -27,10 +27,10 @@ def test_public_api_facade():
 def test_metrics_registry_records_msm():
     import random
 
-    from curdleproofs_tpu.curve import G1
-    from curdleproofs_tpu.fields import FR_MOD, Fr
-    from curdleproofs_tpu.ops.msm import msm
-    from curdleproofs_tpu.utils.profiling import collect, metrics_report
+    from curdleproofs_jax.curve import G1
+    from curdleproofs_jax.fields import FR_MOD, Fr
+    from curdleproofs_jax.ops.msm import msm
+    from curdleproofs_jax.utils.profiling import collect, metrics_report
 
     rng = random.Random(5)
     pts = [G1() * Fr(rng.randrange(1, FR_MOD)) for _ in range(8)]

@@ -4,24 +4,24 @@ test_same_scalar_arg/test_group_commit/test_tracker_opening_proof, sized for
 CI on the CPU backend)."""
 import pytest
 
-from curdleproofs_tpu.curve import G1, g1_sum
-from curdleproofs_tpu.fields import Fr, fr_inner_product
-from curdleproofs_tpu.models.commitment import GroupCommitment
-from curdleproofs_tpu.models.crs import CurdleproofsCrs
-from curdleproofs_tpu.models.grand_product import GrandProductProof
-from curdleproofs_tpu.models.ipa import IPA, generate_ipa_blinders
-from curdleproofs_tpu.models.msm_accumulator import MSMAccumulator
-from curdleproofs_tpu.models.opening import TrackerOpeningProof
-from curdleproofs_tpu.models.same_msm import SameMSMProof
-from curdleproofs_tpu.models.same_permutation import (
+from curdleproofs_jax.curve import G1, g1_sum
+from curdleproofs_jax.fields import Fr, fr_inner_product
+from curdleproofs_jax.models.commitment import GroupCommitment
+from curdleproofs_jax.models.crs import CurdleproofsCrs
+from curdleproofs_jax.models.grand_product import GrandProductProof
+from curdleproofs_jax.models.ipa import IPA, generate_ipa_blinders
+from curdleproofs_jax.models.msm_accumulator import MSMAccumulator
+from curdleproofs_jax.models.opening import TrackerOpeningProof
+from curdleproofs_jax.models.same_msm import SameMSMProof
+from curdleproofs_jax.models.same_permutation import (
     SamePermutationProof,
     get_permutation,
 )
-from curdleproofs_tpu.models.same_scalar import SameScalarProof
-from curdleproofs_tpu.ops.msm import msm as compute_msm
-from curdleproofs_tpu.transcript.fiat_shamir import CurdleproofsTranscript
-from curdleproofs_tpu.utils.errors import ProofError
-from curdleproofs_tpu.utils.rng import ProofRng
+from curdleproofs_jax.models.same_scalar import SameScalarProof
+from curdleproofs_jax.ops.msm import msm as compute_msm
+from curdleproofs_jax.transcript.fiat_shamir import CurdleproofsTranscript
+from curdleproofs_jax.utils.errors import ProofError
+from curdleproofs_jax.utils.rng import ProofRng
 
 N = 64
 N_BLINDERS = 4
@@ -372,7 +372,7 @@ def test_crs_validation():
     assert crs.H_sum == g1_sum(crs.vec_H)
     # serde round-trips
     assert CurdleproofsCrs.from_json(crs.to_json()).to_json() == crs.to_json()
-    from curdleproofs_tpu.utils.serde import BufReader
+    from curdleproofs_jax.utils.serde import BufReader
 
     rt = CurdleproofsCrs.from_bytes(BufReader(crs.to_bytes()), 4, 4)
     assert rt.to_bytes() == crs.to_bytes()

@@ -3,14 +3,14 @@ import random
 
 import pytest
 
-from curdleproofs_tpu.curve import G1
-from curdleproofs_tpu.fields import FR_MOD, Fr
-from curdleproofs_tpu.ops import g1 as og
-from curdleproofs_tpu.ops.compress import (
+from curdleproofs_jax.curve import G1
+from curdleproofs_jax.fields import FR_MOD, Fr
+from curdleproofs_jax.ops import g1 as og
+from curdleproofs_jax.ops.compress import (
     batch_compress,
     batch_decompress_to_host,
 )
-from curdleproofs_tpu.utils.errors import SerdeError
+from curdleproofs_jax.utils.errors import SerdeError
 
 rng = random.Random(0x51DE)
 
@@ -53,7 +53,7 @@ def test_malformed_batch_rejected():
     # x not on curve: x = 1 (1 + 4 = 5 is a QNR for BLS12-381)
     bad = bytearray((1).to_bytes(48, "big"))
     bad[0] |= 0x80
-    from curdleproofs_tpu.curve import fq_sqrt
+    from curdleproofs_jax.curve import fq_sqrt
 
     if fq_sqrt(5) is None:
         with pytest.raises(SerdeError):

@@ -4,8 +4,8 @@ import random
 
 import pytest
 
-from curdleproofs_tpu.fields import CURVE_ORDER, FQ_MOD, FR_MOD, Fr
-from curdleproofs_tpu.curve import (
+from curdleproofs_jax.fields import CURVE_ORDER, FQ_MOD, FR_MOD, Fr
+from curdleproofs_jax.curve import (
     G1,
     G1_GENERATOR,
     G1_IDENTITY,
@@ -151,8 +151,8 @@ def test_native_glv_backend_matches_pure_python():
     corner scalars (csrc/g1.c glv_decompose / j_mul_glv / msm_jpts)."""
     import random
 
-    from curdleproofs_tpu import curve as cv
-    from curdleproofs_tpu.ops.glv import LAMBDA
+    from curdleproofs_jax import curve as cv
+    from curdleproofs_jax.ops.glv import LAMBDA
 
     rng = random.Random(17)
     pts = [G1() * Fr(rng.randrange(1, FR_MOD)) for _ in range(12)] + [

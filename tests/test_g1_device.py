@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from curdleproofs_tpu.curve import G1, msm_host
-from curdleproofs_tpu.fields import FR_MOD, Fr
-from curdleproofs_tpu.ops import g1 as og
-from curdleproofs_tpu.ops import modarith as ma
-from curdleproofs_tpu.ops import scan as oscan
-from curdleproofs_tpu.ops.fieldspec import FQ_SPEC
+from curdleproofs_jax.curve import G1, msm_host
+from curdleproofs_jax.fields import FR_MOD, Fr
+from curdleproofs_jax.ops import g1 as og
+from curdleproofs_jax.ops import modarith as ma
+from curdleproofs_jax.ops import scan as oscan
+from curdleproofs_jax.ops.fieldspec import FQ_SPEC
 
 rng = random.Random(0xBEEF)
 
@@ -77,10 +77,17 @@ def test_jdbl(pts8):
     assert unpack_j(jax.jit(og.jdbl)(jp)) == [p + p for p in pts8]
 
 
-def test_scalar_mul_per_lane(pts8):
+def test_scalar_mul_per_lane(pts8, monkeypatch):
+    """Per-lane k_i * P_i through og.glv_scale (the GLV ladder program)."""
+    import numpy as np
+
+    from curdleproofs_jax.ops.fieldspec import ints_to_limbs
+
+    monkeypatch.setattr(og, "GLV_TILE", 8)
     scs = rand_scalars(8)
     scs[0], scs[1] = Fr(0), Fr(1)
-    res = jax.jit(og.scalar_mul)(og.pack_points(pts8), og.pack_scalars(scs))
+    sc_np = np.asarray(ints_to_limbs([s.v for s in scs], 16), dtype=np.uint32)
+    res = og.glv_scale(og.pack_points(pts8), sc_np)
     assert unpack_j(res) == [p * s for p, s in zip(pts8, scs)]
 
 

@@ -1,18 +1,18 @@
-"""GLV endomorphism decomposition (ops.glv) and the dual-table ladder kernel.
+"""GLV endomorphism decomposition (ops.glv) and the dual-table ladder.
 
-The decomposition feeds the flagship Pallas MSM kernel; its invariants
-(|k1| bounds, sign structure) are load-bearing for the kernel's
-doubling-free-add soundness proof, so they are asserted here explicitly.
+The decomposition feeds the GLV ladder (ops.g1.scalar_mul_glv) and the
+GLV-split stream MSM; its invariants (|k1| bounds, sign structure) are
+load-bearing for the ladder's doubling-free-add soundness proof, so they are
+asserted here explicitly.
 """
 import random
 
 import numpy as np
-import pytest
 
-from curdleproofs_tpu.fields import FR_MOD, Fr
-from curdleproofs_tpu.curve import G1
-from curdleproofs_tpu.ops import glv
-from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
+from curdleproofs_jax.fields import FR_MOD, Fr
+from curdleproofs_jax.curve import G1
+from curdleproofs_jax.ops import glv
+from curdleproofs_jax.ops.fieldspec import ints_to_limbs
 
 rng = random.Random(29)
 
@@ -45,7 +45,7 @@ def test_lattice_identity():
 
 def test_beta_lambda_pairing():
     """phi(x, y) = (beta*x, y) must equal lambda * (x, y) on G1."""
-    from curdleproofs_tpu.ops.fieldspec import FQ_SPEC
+    from curdleproofs_jax.ops.fieldspec import FQ_SPEC
 
     q = FQ_SPEC.modulus
     assert pow(glv.BETA, 3, q) == 1 and glv.BETA != 1
@@ -64,7 +64,7 @@ def test_decompose_matches_int_reference_and_invariants():
         assert (k1, k2) == (rk1, rk2)
         # reconstruction
         assert (k1 + k2 * glv.LAMBDA) % FR_MOD == k
-        # kernel soundness invariants (pallas_g1._build_glv_ladder_kernel)
+        # ladder soundness invariants (ops.g1.scalar_mul_glv)
         assert abs(k1) < 1 << 129
         assert 0 <= k2 <= glv.LAMBDA
         if abs(k1) > glv.LAMBDA // 2 + 1:
@@ -83,28 +83,29 @@ def test_decompose_rejects_nothing_valid():
         assert (k1 + k2 * glv.LAMBDA) % FR_MOD == k
 
 
-@pytest.mark.slow
 def test_glv_kernel_interpret_matches_host(monkeypatch):
-    """Dual-table ladder kernel (interpreter mode) vs exact host arithmetic,
-    including identity points and edge scalars."""
-    import jax.numpy as jnp
+    """XLA GLV dual-table ladder (og.scalar_mul_glv) through og.glv_scale's
+    fixed-width tiles (two 64-lane tiles here) vs exact host arithmetic,
+    including identity points and edge scalars; and og.sum_to_host's
+    segment sums of its output."""
+    from curdleproofs_jax.curve import msm_host
+    from curdleproofs_jax.ops import g1 as og
 
-    from curdleproofs_tpu.ops import g1 as og
-    from curdleproofs_tpu.ops import pallas_g1 as pg
+    monkeypatch.setattr(og, "GLV_TILE", 64)
 
-    monkeypatch.setattr(pg, "_FORCE", "1")
     n = 128
     pts = [G1() * Fr(rng.randrange(1, FR_MOD)) for _ in range(n)]
     pts[3] = G1.identity()
     scs = [Fr(rng.randrange(FR_MOD)) for _ in range(n)]
     for i, e in enumerate(EDGES):
         scs[i] = Fr(e % FR_MOD)
-    points = og.pack_points(pts)
-    s1, neg1, s2 = glv.decompose(
-        np.asarray(ints_to_limbs([s.v for s in scs], 16))
+    n = 120  # pads the second tile
+    pts, scs = pts[:n], scs[:n]
+    acc = og.glv_scale(
+        og.pack_points(pts), np.asarray(ints_to_limbs([s.v for s in scs], 16))
     )
-    acc = pg.scalar_mul_glv(
-        points, jnp.asarray(s1), jnp.asarray(neg1), jnp.asarray(s2)
-    )
-    got = og.jpoints_to_host(acc)
-    assert got == [p * s for p, s in zip(pts, scs)]
+    assert og.jpoints_to_host(acc) == [p * s for p, s in zip(pts, scs)]
+    assert og.sum_to_host(acc, 2) == [
+        msm_host(pts[:60], scs[:60]),
+        msm_host(pts[60:], scs[60:]),
+    ]

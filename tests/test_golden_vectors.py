@@ -1,5 +1,4 @@
-"""External golden-vector anchoring of the curve arithmetic (VERDICT r3
-missing #1).
+"""External golden-vector anchoring of the curve arithmetic.
 
 The reference inherits battle-tested group math from the arkworks wheel
 (test_curdleproofs.py:45-213); this repo implements BLS12-381 from scratch
@@ -22,14 +21,14 @@ reference (test_curdleproofs.py:179-180), k=2 the widely published 2G.
 import numpy as np
 import pytest
 
-from curdleproofs_tpu.curve import (
+from curdleproofs_jax.curve import (
     G1,
     compress_host_batch,
     decompress_host_batch,
     msm_host,
     mul_host_batch,
 )
-from curdleproofs_tpu.fields import FQ_MOD, FR_MOD, Fr
+from curdleproofs_jax.fields import FQ_MOD, FR_MOD, Fr
 
 # ---- independent implementation (generator of record) ----------------------
 
@@ -144,9 +143,9 @@ def test_native_batch_mul_and_compress_match_golden():
 
 
 def test_msm_all_engines_match_golden():
-    from curdleproofs_tpu.ops import g1 as og
-    from curdleproofs_tpu.ops import msm as omsm
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
+    from curdleproofs_jax.ops import g1 as og
+    from curdleproofs_jax.ops import msm as omsm
+    from curdleproofs_jax.ops.fieldspec import ints_to_limbs
 
     bases = [G1() * Fr(k) for k, _ in KG_VECTORS[:8]]
     for scalars, want_hex in (
@@ -189,7 +188,7 @@ def test_decompression_matches_golden_affine():
     for (k, _), p in zip(KG_VECTORS, pts):
         assert p == g * Fr(k)
     # device batched decode (ops.compress twin)
-    from curdleproofs_tpu.ops import compress as ocompress
+    from curdleproofs_jax.ops import compress as ocompress
 
     dev_pts = ocompress.batch_decompress_to_host(
         [bytes.fromhex(h) for _, h in KG_VECTORS]
@@ -198,11 +197,13 @@ def test_decompression_matches_golden_affine():
         assert p == g * Fr(k)
 
 
-def test_device_ladder_matches_golden():
-    """Device scalar-mul path (XLA fallback on CPU, fused kernels on TPU)
+def test_device_ladder_matches_golden(monkeypatch):
+    """Device scalar-mul path (the GLV ladder program, one 8-lane tile)
     against the independent vectors."""
-    from curdleproofs_tpu.ops import g1 as og
-    from curdleproofs_tpu.ops import msm as omsm
+    from curdleproofs_jax.ops import g1 as og
+    from curdleproofs_jax.ops import msm as omsm
+
+    monkeypatch.setattr(og, "GLV_TILE", 8)
 
     ks = [k for k, _ in KG_VECTORS[:6]] + [_R - 1, (_R + 1) // 2]
     # one ladder MSM per scalar against a one-hot selection would be slow;

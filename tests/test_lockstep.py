@@ -6,15 +6,15 @@ under the unmodified per-proof verifier, and a seeded batch is bit-identical
 across runs (spawn-order determinism)."""
 import pytest
 
-from curdleproofs_tpu.curve import G1
-from curdleproofs_tpu.models.crs import CurdleproofsCrs
-from curdleproofs_tpu.models.whisk import (
+from curdleproofs_jax.curve import G1
+from curdleproofs_jax.models.crs import CurdleproofsCrs
+from curdleproofs_jax.models.whisk import (
     BLSPubkey,
     GenerateWhiskShuffleProofs,
     IsValidWhiskShuffleProof,
     WhiskTracker,
 )
-from curdleproofs_tpu.utils.rng import ProofRng
+from curdleproofs_jax.utils.rng import ProofRng
 
 ELL = 12
 K = 3
@@ -70,8 +70,8 @@ def test_batch_single_instance(setup):
 
 
 def test_lockstep_divergence_detected():
-    from curdleproofs_tpu.utils.lockstep import LockstepError, run_lockstep
-    from curdleproofs_tpu.vectors import PointVec, ScalarVec
+    from curdleproofs_jax.utils.lockstep import LockstepError, run_lockstep
+    from curdleproofs_jax.vectors import PointVec, ScalarVec
 
     gen = G1()
     pv2 = PointVec([gen, gen + gen])
@@ -84,9 +84,9 @@ def test_lockstep_divergence_detected():
 
 def test_lockstep_merged_ops_match_host():
     """Each merged op kind agrees with the unbatched host path."""
-    from curdleproofs_tpu.utils.lockstep import run_lockstep
-    from curdleproofs_tpu.vectors import PointVec, ScalarVec
-    from curdleproofs_tpu.fields import Fr
+    from curdleproofs_jax.utils.lockstep import run_lockstep
+    from curdleproofs_jax.vectors import PointVec, ScalarVec
+    from curdleproofs_jax.fields import Fr
 
     rng = ProofRng(5)
     gen = G1()

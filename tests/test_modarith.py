@@ -4,8 +4,8 @@ import random
 import jax
 import pytest
 
-from curdleproofs_tpu.ops import modarith as ma
-from curdleproofs_tpu.ops.fieldspec import (
+from curdleproofs_jax.ops import modarith as ma
+from curdleproofs_jax.ops.fieldspec import (
     FQ_SPEC,
     FR_SPEC,
     int_to_limbs,
@@ -107,19 +107,19 @@ def test_unrolled_path_matches_looped(spec):
     Rinv = pow(R, -1, p)
     xs, ys = _rand_batch(spec, n=16), _rand_batch(spec, n=16)
     X, Y = ints_to_limbs(xs, spec.nlimbs), ints_to_limbs(ys, spec.nlimbs)
-    got = limbs_to_ints(ma._mont_mul_unrolled(spec, X, Y))
+    got = limbs_to_ints(ma._mont_mul_vec(spec, X, Y))
     assert got == [x * y * Rinv % p for x, y in zip(xs, ys)]
     assert got == limbs_to_ints(ma._mont_mul_looped(spec, X, Y))
 
 
 def test_in_kernel_mul_formulations_agree():
-    """_mont_mul_cols1 / _mont_mul_cols2 / _mont_sqr_cols / _mont_sqr_cols2
-    (the Pallas kernel-body forms) vs the host mont_mul on random inputs,
-    including edge values near the modulus."""
+    """The "vec" form (the GPU's) vs the looped form (the CPU's) on random
+    inputs, including edge values near the modulus, and mont_mul/mont_sqr
+    dispatch under each limb mode."""
     import jax.numpy as jnp
     import numpy as np
 
-    from curdleproofs_tpu.ops.fieldspec import FQ_SPEC, ints_to_limbs, limbs_to_ints
+    from curdleproofs_jax.ops.fieldspec import FQ_SPEC, ints_to_limbs, limbs_to_ints
 
     rng_ = np.random.default_rng(11)
     p = FQ_SPEC.modulus
@@ -131,14 +131,56 @@ def test_in_kernel_mul_formulations_agree():
     ]
     a = jnp.asarray(ints_to_limbs(vals_a, FQ_SPEC.nlimbs))
     b = jnp.asarray(ints_to_limbs(vals_b, FQ_SPEC.nlimbs))
-    want_mul = limbs_to_ints(np.asarray(ma.mont_mul(FQ_SPEC, a, b)))
-    want_sqr = limbs_to_ints(np.asarray(ma.mont_mul(FQ_SPEC, a, a)))
-    with ma.mod_override(FQ_SPEC, jnp.asarray(FQ_SPEC.mod_limbs)):
-        got1 = limbs_to_ints(np.asarray(ma._mont_mul_cols1(FQ_SPEC, a, b)))
-        got2 = limbs_to_ints(np.asarray(ma._mont_mul_cols2(FQ_SPEC, a, b)))
-        gs1 = limbs_to_ints(np.asarray(ma._mont_sqr_cols(FQ_SPEC, a)))
-        gs2 = limbs_to_ints(np.asarray(ma._mont_sqr_cols2(FQ_SPEC, a)))
-    assert got1 == want_mul
-    assert got2 == want_mul
-    assert gs1 == want_sqr
-    assert gs2 == want_sqr
+    want_mul = limbs_to_ints(np.asarray(ma._mont_mul_looped(FQ_SPEC, a, b)))
+    want_sqr = limbs_to_ints(np.asarray(ma._mont_mul_looped(FQ_SPEC, a, a)))
+    assert limbs_to_ints(np.asarray(ma._mont_mul_vec(FQ_SPEC, a, b))) == want_mul
+    for mode in ma.LIMB_MODES:
+        with ma.limb_mode_override(mode):
+            assert ma.limb_mode() == mode
+            got = limbs_to_ints(np.asarray(ma.mont_mul(FQ_SPEC, a, b)))
+            gs = limbs_to_ints(np.asarray(ma.mont_sqr(FQ_SPEC, a)))
+        assert got == want_mul, mode
+        assert gs == want_sqr, mode
+
+
+def test_vec_form_carry_chains(spec):
+    """The "vec" limb form (lookahead carries, no limb loop) on structured
+    operands whose limbs are all-ones or all-zero runs (the longest carry
+    and borrow chains), vs exact ints; plus _normalize_vec on columns built
+    from 0xFFFF / 0x10000 runs."""
+    import numpy as np
+
+    p = spec.modulus
+    L = spec.nlimbs
+    R = 1 << (16 * L)
+    Rinv = pow(R, -1, p)
+    st = []
+    for j in range(1, L + 1, 3):
+        st += [
+            ((1 << (16 * j)) - 1) % p,
+            (p - (1 << (16 * (j - 1)))) % p,
+            (p - 1 - ((1 << (16 * j)) - 1)) % p,
+        ]
+    xs = [a for a in st for _ in st]
+    ys = [b for _ in st for b in st]
+    X, Y = ints_to_limbs(xs, L), ints_to_limbs(ys, L)
+    with ma.limb_mode_override("vec"):
+        mul = limbs_to_ints(np.asarray(jax.jit(lambda a, b: ma.mont_mul(spec, a, b))(X, Y)))
+        add = limbs_to_ints(np.asarray(jax.jit(lambda a, b: ma.add(spec, a, b))(X, Y)))
+        sub = limbs_to_ints(np.asarray(jax.jit(lambda a, b: ma.sub(spec, a, b))(X, Y)))
+    assert mul == [x * y * Rinv % p for x, y in zip(xs, ys)]
+    assert add == [(x + y) % p for x, y in zip(xs, ys)]
+    assert sub == [(x - y) % p for x, y in zip(xs, ys)]
+
+    g = np.random.default_rng(L)
+    cols = g.choice(
+        np.array([0, 0xFFFF, 0x10000, 0xFFFE, 1 << 22], np.uint32), (2 * L, 64)
+    )
+    with ma.limb_mode_override("vec"):
+        limbs, carry = ma._normalize_vec(jax.numpy.asarray(cols), passes=2)
+    limbs, carry = np.asarray(limbs), np.asarray(carry)
+    assert limbs.max() <= 0xFFFF
+    for j in range(64):
+        want = sum(int(cols[k, j]) << (16 * k) for k in range(2 * L))
+        got = sum(int(limbs[k, j]) << (16 * k) for k in range(2 * L))
+        assert got + (int(carry[j]) << (32 * L)) == want

@@ -1,15 +1,13 @@
 """MSM engine tests: Pippenger sort-scan vs naive ladder vs host oracle."""
 import random
 
-import jax
-import jax.numpy as jnp
 import pytest
 
-from curdleproofs_tpu.curve import G1, msm_host
-from curdleproofs_tpu.fields import FR_MOD, Fr
-from curdleproofs_tpu.ops import g1 as og
-from curdleproofs_tpu.ops import msm as omsm
-from curdleproofs_tpu.ops import scan as oscan
+from curdleproofs_jax.curve import G1, msm_host
+from curdleproofs_jax.fields import FR_MOD, Fr
+from curdleproofs_jax.ops import g1 as og
+from curdleproofs_jax.ops import msm as omsm
+from curdleproofs_jax.ops import scan as oscan
 
 rng = random.Random(0xABCD)
 
@@ -62,7 +60,8 @@ def test_empty_msm():
     assert omsm.msm([], []).is_identity()
 
 
-def test_naive_ladder_matches():
+def test_naive_ladder_matches(monkeypatch):
+    monkeypatch.setattr(og, "GLV_TILE", 8)  # one 8-lane ladder tile
     n = 8
     pts, scs = rand_points(n), rand_scalars(n)
     assert omsm.msm_naive(og.pack_points(pts), og.pack_scalars(scs)) == msm_host(
@@ -96,34 +95,10 @@ def test_pippenger_small_window_batches():
     assert got == msm_host(pts, scs)
 
 
-def test_onehot_gather_exact():
-    from curdleproofs_tpu.ops import gather as ogather
-
-    key_rng = random.Random(7)
-    import numpy as np
-
-    table = np.array(
-        [[key_rng.randrange(1 << 32) for _ in range(64)] for _ in range(5)],
-        dtype=np.uint64,
-    ).astype(np.uint32)
-    idx = np.array(
-        [[key_rng.randrange(-2, 64) for _ in range(40)] for _ in range(3)],
-        dtype=np.int32,
-    )
-    got = np.asarray(ogather.gather_u32(jnp.asarray(table)[:, None, :].repeat(3, 1), jnp.asarray(idx)))
-    want = np.asarray(
-        ogather.gather_u32_xla(jnp.asarray(table)[:, None, :].repeat(3, 1), jnp.asarray(idx))
-    )
-    assert (got == want).all()
-
-    shared = np.asarray(ogather.gather_u32_shared(jnp.asarray(table), jnp.asarray(idx)))
-    assert (shared == want).all()
-
-
 def test_msm_hostsort_matches_oracle():
     import numpy as np
 
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
+    from curdleproofs_jax.ops.fieldspec import ints_to_limbs
 
     n = 96  # non-power-of-two; includes zero scalars and infinity points
     pts = rand_points(n - 2) + [G1.identity(), G1()]
@@ -136,7 +111,7 @@ def test_msm_hostsort_matches_oracle():
 def test_msm_stream_matches_oracle():
     import numpy as np
 
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
+    from curdleproofs_jax.ops.fieldspec import ints_to_limbs
 
     # non-power-of-two; exercises padding, zero scalars, infinity points,
     # duplicate points (madd doubling case inside the streaming scan), and
@@ -147,100 +122,22 @@ def test_msm_stream_matches_oracle():
     sc_np = np.asarray(ints_to_limbs([s.v for s in scs], 16), dtype=np.uint32)
     want = msm_host(pts, scs)
     got = omsm.msm_pippenger_stream(
-        og.pack_points(pts), sc_np, c=13, window_batch=11
-    )
-    assert got == want
-
-
-def test_rowwise_and_routed_gather_exact():
-    """Row-local one-hot gather kernel and the 3-stage routed permutation
-    gather (interpret mode) vs numpy."""
-    import numpy as np
-
-    from curdleproofs_tpu.ops import gather as ogather
-    from curdleproofs_tpu.ops import route
-
-    rng = np.random.default_rng(5)
-    G_, R, K, M = 6, 5, 16, 24
-    tab = rng.integers(0, 1 << 32, (G_, R, K), dtype=np.uint32)
-    idx = rng.integers(-2, K, (G_, M)).astype(np.int32)
-    out = np.asarray(ogather.rowwise_gather(jnp.asarray(tab), jnp.asarray(idx)))
-    for g in range(G_):
-        for m in range(M):
-            want = tab[g, :, idx[g, m]] if 0 <= idx[g, m] < K else 0
-            assert (out[g, :, m] == want).all()
-
-    r, c, W = 16, 8, 3
-    n = r * c
-    packed = rng.integers(0, 1 << 32, (49, n), dtype=np.uint32)
-    src = np.stack([rng.permutation(n) for _ in range(W)]).astype(np.int32)
-    i1, i2, i3 = route.decompose_py(r, c, src)
-    got = np.asarray(
-        ogather.routed_gather(
-            jnp.asarray(packed), jnp.asarray(i1), jnp.asarray(i2), jnp.asarray(i3)
-        )
-    )
-    want = np.stack([packed[:, src[w]] for w in range(W)], axis=1)
-    assert np.array_equal(got, want)
-
-
-def test_msm_stream_routed_matches_oracle(monkeypatch):
-    """Full streaming MSM with the 3-stage routed gather forced on, at a
-    small size (thresholds monkeypatched below the production 2^14 floor)."""
-    import numpy as np
-
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
-
-    monkeypatch.setattr(omsm, "ROUTE_MIN_N", 256)
-    monkeypatch.setattr(omsm, "ROUTE_MIN_FACTOR", 8)
-    n = 200  # pads to 256; includes zero scalars, infinity, duplicates
-    pts = rand_points(n - 4) + [G1.identity(), G1()] + [G1() * Fr(3)] * 2
-    scs = rand_scalars(n - 3) + [Fr(0), Fr(0), Fr(5)]
-    sc_np = np.asarray(ints_to_limbs([s.v for s in scs], 16), dtype=np.uint32)
-    want = msm_host(pts, scs)
-    got = omsm.msm_pippenger_stream(
-        og.pack_points(pts), sc_np, c=9, window_batch=13, routed=True
-    )
-    assert got == want
-
-
-def test_msm_stream_routed_sel_matches_oracle(monkeypatch):
-    """Streaming MSM with routed gather AND in-kernel boundary selection
-    forced on at a small size (ADVICE r3: the sel/bpos encoding was only
-    exercised on hardware). Small L makes T large enough that the
-    selection schedule fits S=128 and actually engages."""
-    import numpy as np
-
-    from curdleproofs_tpu.ops import stream_scan as ostream
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
-
-    monkeypatch.setattr(omsm, "ROUTE_MIN_N", 256)
-    monkeypatch.setattr(omsm, "ROUTE_MIN_FACTOR", 8)
-    monkeypatch.setattr(ostream, "_LANES", 32)  # L=32 -> T=16 at n2=512
-    n = 250  # pads to 256; GLV split doubles to 512 lanes
-    pts = rand_points(n - 4) + [G1.identity(), G1()] + [G1() * Fr(3)] * 2
-    scs = rand_scalars(n - 3) + [Fr(0), Fr(0), Fr(5)]
-    sc_np = np.asarray(ints_to_limbs([s.v for s in scs], 16), dtype=np.uint32)
-    want = msm_host(pts, scs)
-    got = omsm.msm_pippenger_stream(
-        og.pack_points(pts), sc_np, c=9, window_batch=5, routed=True
-    )
+        og.pack_points(pts), sc_np, c=8, window_batch=11
+    )  # GLV split: W = 17 windows in two chunks, the second padded
     assert got == want
 
 
 def test_msm_stream_sel_doubling_collision_falls_back(monkeypatch):
     """All-equal points/scalars: every lane's second record equals its
-    running prefix, so the no-doubling fast-path scan must flag the p == q
-    collision and the engine must redo on the doubling-safe path, still
-    returning the exact result."""
+    running prefix, so the doubling-free scan of the direct stream path
+    must flag the p == q collision and the engine must redo on the
+    doubling-safe scan, still returning the exact result."""
     import numpy as np
 
-    from curdleproofs_tpu.ops import stream_scan as ostream
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
+    from curdleproofs_jax.ops import stream_scan as ostream
+    from curdleproofs_jax.ops.fieldspec import ints_to_limbs
 
-    monkeypatch.setattr(omsm, "ROUTE_MIN_N", 256)
-    monkeypatch.setattr(omsm, "ROUTE_MIN_FACTOR", 8)
-    monkeypatch.setattr(ostream, "_LANES", 32)
+    monkeypatch.setattr(ostream, "pick_lanes", lambda n: min(32, n))
     n = 256
     p = G1() * Fr(11)
     pts = [p] * n
@@ -250,54 +147,27 @@ def test_msm_stream_sel_doubling_collision_falls_back(monkeypatch):
     calls = {"safe": 0}
     orig = omsm._msm_stream_impl
 
-    def spy(points, scalars_np, c, window_batch=None, routed=None, _safe=False):
+    def spy(points, scalars_np, c, window_batch=None, device=None, _safe=False):
         if _safe:
             calls["safe"] += 1
-        return orig(points, scalars_np, c, window_batch, routed, _safe)
+        return orig(points, scalars_np, c, window_batch, device, _safe=_safe)
 
     monkeypatch.setattr(omsm, "_msm_stream_impl", spy)
-    got = omsm.msm_pippenger_stream(
-        og.pack_points(pts), sc_np, c=9, routed=True
-    )
+    got = omsm.msm_pippenger_stream(og.pack_points(pts), sc_np, c=9)
     assert got == msm_host(pts, scs)
     assert calls["safe"] == 1, "doubling collision must trigger the safe redo"
 
 
-def test_build_sel_escalation_and_overflow():
-    """_build_sel slot scheduling: occupancy just over 128 needs S=256;
-    pathological concentration (every boundary rank congruent mod T)
-    overflows even 256 and must return (None, None)."""
-    import numpy as np
-
-    T = 8
-    # 200 distinct ranks all congruent to 3 (mod T): occupancy 200
-    e = (np.arange(200, dtype=np.int64) * T + 3).reshape(1, 200)
-    sel, bpos = omsm._build_sel(e, T, 128)
-    assert sel is None and bpos is None
-    sel, bpos = omsm._build_sel(e, T, 256)
-    assert sel is not None
-    # every rank landed in step 3's slot list, distinct slots
-    row = sel.reshape(T, 256)[3]
-    assert (np.sort(row[row >= 0]) == np.arange(200)).all()
-    # bpos points each boundary at its own slot in step 3
-    assert (bpos[0] // 256 == 3).all()
-    # 300 distinct ranks, same step: overflows both options
-    e2 = (np.arange(300, dtype=np.int64) * T + 1).reshape(1, 300)
-    for S in (128, 256):
-        s2, b2 = omsm._build_sel(e2, T, S)
-        assert s2 is None and b2 is None
-
-
 def test_native_msm_prep_matches_numpy_pipeline():
-    """C msm_prep_batch vs the numpy GLV+digits+sort+boundaries+sel chain
+    """C msm_prep_batch vs the numpy GLV+digits+sort+boundaries chain
     (both stable sorts of identical keys -> bit-identical tables)."""
     import numpy as np
 
-    _g1n = pytest.importorskip("curdleproofs_tpu._g1_native")
+    _g1n = pytest.importorskip("curdleproofs_jax._g1_native")
     if not hasattr(_g1n, "msm_prep_batch"):
         pytest.skip("stale native build")
-    from curdleproofs_tpu.ops import glv as oglv
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
+    from curdleproofs_jax.ops import glv as oglv
+    from curdleproofs_jax.ops.fieldspec import ints_to_limbs
 
     n, c, L = 512, 8, 64
     vals = [rng.randrange(FR_MOD) for _ in range(n - 2)] + [0, FR_MOD - 1]
@@ -309,11 +179,10 @@ def test_native_msm_prep_matches_numpy_pipeline():
     )
     W = digits.shape[0]
     n2 = 2 * n
-    T = n2 // L
-    ocm_ref, bidx_ref, lidx_ref, e_ref = omsm.stream_host_prep(digits, c, L)
+    ocm_ref, bidx_ref, lidx_ref, _ = omsm.stream_host_prep(digits, c, L)
 
     buf = np.ascontiguousarray(sc16.T.astype("<u2")).tobytes()
-    nb, ob, bb, lb, sb_, pb, S, Wn = _g1n.msm_prep_batch(buf, c, L)
+    nb, ob, bb, lb, _, _, _, Wn = _g1n.msm_prep_batch(buf, c, L)
     assert Wn == W
     assert np.array_equal(np.frombuffer(nb, np.uint8).astype(bool), neg_ref)
     assert np.array_equal(
@@ -325,15 +194,6 @@ def test_native_msm_prep_matches_numpy_pipeline():
     assert np.array_equal(
         np.frombuffer(lb, np.int32).reshape(W, -1), lidx_ref
     )
-    if S:
-        sel_ref, bpos_ref = omsm._build_sel(e_ref, T, S)
-        assert sel_ref is not None
-        assert np.array_equal(
-            np.frombuffer(sb_, np.int32).reshape(W * T, S), sel_ref
-        )
-        assert np.array_equal(
-            np.frombuffer(pb, np.int32).reshape(W, -1), bpos_ref
-        )
 
 
 def test_msm_stream_duplicate_runs():
@@ -341,7 +201,7 @@ def test_msm_stream_duplicate_runs():
     madd doubling branch at (almost) every step."""
     import numpy as np
 
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
+    from curdleproofs_jax.ops.fieldspec import ints_to_limbs
 
     n = 16
     p = G1() * Fr(11)
@@ -352,27 +212,6 @@ def test_msm_stream_duplicate_runs():
     assert got == msm_host(pts, scs)
 
 
-@pytest.mark.slow
-def test_stream_scan_pallas_interpret(monkeypatch):
-    """Pallas streaming-scan kernel vs its XLA twin (interpreter mode)."""
-    import numpy as np
-
-    from curdleproofs_tpu.ops import pallas_g1 as pg
-    from curdleproofs_tpu.ops import stream_scan as ostream
-
-    monkeypatch.setattr(pg, "_FORCE", "1")
-    W, T, L = 1, 2, 128
-    pts = rand_points(W * T * L - 1) + [G1.identity()]
-    ap = og.pack_points(pts)
-    rec = jnp.concatenate(
-        [ap.x, ap.y, ap.inf[None].astype(jnp.uint32)], axis=0
-    )
-    got_p, got_t = ostream.scan_records_pallas(rec, W, T, L)
-    want_p, want_t = ostream._scan_records_xla(rec, W, T, L)
-    assert (np.asarray(got_p) == np.asarray(want_p)).all()
-    assert (np.asarray(got_t) == np.asarray(want_t)).all()
-
-
 def test_msm_stream_glv_split_matches_oracle(monkeypatch):
     """GLV-split streaming path (lane doubling, W halved) vs both the
     non-split stream and the host oracle, including the decomposition's
@@ -380,8 +219,8 @@ def test_msm_stream_glv_split_matches_oracle(monkeypatch):
     lambda boundaries."""
     import numpy as np
 
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
-    from curdleproofs_tpu.ops.glv import LAMBDA
+    from curdleproofs_jax.ops.fieldspec import ints_to_limbs
+    from curdleproofs_jax.ops.glv import LAMBDA
 
     n = 60  # pads to 128 = GLV_STREAM_MIN_N
     pts = rand_points(n - 3) + [G1.identity(), G1()] + [G1() * Fr(3)]
@@ -403,34 +242,12 @@ def test_msm_stream_glv_split_matches_oracle(monkeypatch):
     assert got_plain == want
 
 
-def test_msm_stream_pack32_matches_oracle(monkeypatch):
-    """The int32 index packing (i1|i3|i2 in one word — the n >= 2^20 wire
-    format) forced on at small size via a lowered PACK13_MAX_C."""
-    import numpy as np
-
-    from curdleproofs_tpu.ops import stream_scan as ostream
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
-
-    monkeypatch.setattr(omsm, "ROUTE_MIN_N", 256)
-    monkeypatch.setattr(omsm, "ROUTE_MIN_FACTOR", 8)
-    monkeypatch.setattr(omsm, "PACK13_MAX_C", 4)
-    monkeypatch.setattr(ostream, "_LANES", 32)
-    n = 260  # pads to 512 GLV lanes
-    pts = rand_points(n)
-    scs = rand_scalars(n)
-    sc_np = np.asarray(ints_to_limbs([s.v for s in scs], 16), dtype=np.uint32)
-    got = omsm.msm_pippenger_stream(
-        og.pack_points(pts), sc_np, c=9, window_batch=5, routed=True
-    )
-    assert got == msm_host(pts, scs)
-
-
 def test_msm_stream_split_matches_oracle(monkeypatch):
     """Widths above STREAM_SPLIT run as independent slices (MSM linearity)
     combined by host adds — forced at tiny size."""
     import numpy as np
 
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
+    from curdleproofs_jax.ops.fieldspec import ints_to_limbs
 
     monkeypatch.setattr(omsm, "STREAM_SPLIT", 64)
     n = 200  # -> 4 slices: 64, 64, 64, 8(padded)
@@ -441,124 +258,3 @@ def test_msm_stream_split_matches_oracle(monkeypatch):
     assert got == msm_host(pts, scs)
 
 
-def test_msm_stream_pack13b_matches_oracle(monkeypatch):
-    """The i2 low-byte + 9th-bit-bitplane index packing ("13b", the
-    production 2^16-slice wire format with r = 512) forced at small size
-    by pinning the route factorization to r > 256."""
-    import numpy as np
-
-    from curdleproofs_tpu.ops import route as oroute
-    from curdleproofs_tpu.ops import stream_scan as ostream
-    from curdleproofs_tpu.ops.fieldspec import ints_to_limbs
-
-    monkeypatch.setattr(omsm, "ROUTE_MIN_N", 256)
-    monkeypatch.setattr(omsm, "ROUTE_MIN_FACTOR", 8)
-    monkeypatch.setattr(ostream, "_LANES", 64)
-    orig_pick = oroute.pick_rc
-
-    def pick_rc_r512(n, min_factor=128):
-        if n == 2048:
-            return 512, 4  # force the 9-bit-i2 regime
-        return orig_pick(n, min_factor)
-
-    monkeypatch.setattr(oroute, "pick_rc", pick_rc_r512)
-    n = 1024  # GLV-doubles to 2048 lanes
-    pts = rand_points(n)
-    scs = rand_scalars(n)
-    sc_np = np.asarray(ints_to_limbs([s.v for s in scs], 16), dtype=np.uint32)
-    got = omsm.msm_pippenger_stream(
-        og.pack_points(pts), sc_np, c=13, window_batch=10, routed=True
-    )
-    assert got == msm_host(pts, scs)
-
-
-def test_gather_planes2_exact_for_16bit_tables():
-    """planes=2 one-hot gathers (the MSM production setting: all tables are
-    16-bit limbs in u32 containers) match the 4-plane and numpy results."""
-    import numpy as np
-
-    from curdleproofs_tpu.ops import gather as ogather
-    from curdleproofs_tpu.ops import route
-
-    rng = np.random.default_rng(11)
-    table = rng.integers(0, 1 << 16, (5, 64), dtype=np.uint32)
-    idx = rng.integers(-2, 64, (3, 40)).astype(np.int32)
-    want = np.asarray(
-        ogather.gather_u32_xla(
-            jnp.asarray(table)[:, None, :].repeat(3, 1), jnp.asarray(idx)
-        )
-    )
-    got = np.asarray(
-        ogather.gather_u32_shared(jnp.asarray(table), jnp.asarray(idx), planes=2)
-    )
-    assert np.array_equal(got, want)
-
-    G_, R, K, M = 4, 5, 16, 24
-    tab = rng.integers(0, 1 << 16, (G_, R, K), dtype=np.uint32)
-    ridx = rng.integers(-2, K, (G_, M)).astype(np.int32)
-    out = np.asarray(
-        ogather.rowwise_gather(jnp.asarray(tab), jnp.asarray(ridx), planes=2)
-    )
-    for g in range(G_):
-        for m in range(M):
-            w = tab[g, :, ridx[g, m]] if 0 <= ridx[g, m] < K else 0
-            assert (out[g, :, m] == w).all()
-
-    r, c, W = 16, 8, 2
-    n = r * c
-    packed = rng.integers(0, 1 << 16, (49, n), dtype=np.uint32)
-    src = np.stack([rng.permutation(n) for _ in range(W)]).astype(np.int32)
-    i1, i2, i3 = route.decompose_py(r, c, src)
-    got = np.asarray(
-        ogather.routed_gather(
-            jnp.asarray(packed),
-            jnp.asarray(i1),
-            jnp.asarray(i2),
-            jnp.asarray(i3),
-            planes=2,
-        )
-    )
-    want = np.stack([packed[:, src[w]] for w in range(W)], axis=1)
-    assert np.array_equal(got, want)
-
-
-def test_decompose_packed_matches_python_packing():
-    """Native packed route output (decompose_packed) must be byte-identical
-    to the '13a'/'13b' wire bytes ops.msm._pack_idx_chunk builds from the
-    classic decompose() tables."""
-    import numpy as np
-
-    from curdleproofs_tpu.ops import route
-
-    if not route.native_available():
-        import pytest
-
-        pytest.skip("native route solver not built")
-    rng = np.random.default_rng(3)
-    for (r, c) in [(512, 256), (256, 128), (32, 8)]:
-        if not route.packed_available(r, c):
-            continue
-        n = r * c
-        W = 2
-        src = np.stack([rng.permutation(n) for _ in range(W)]).astype(np.int32)
-        out = route.decompose_packed(r, c, src)
-        pack, combo, i2lo = out[0], out[1], out[2]
-        i1, i2, i3 = route.decompose(r, c, src)
-        combo_ref = (
-            i1.astype(np.uint16) | (i3.astype(np.uint16) << 8)
-        ).view(np.int16)
-        assert np.array_equal(combo, combo_ref)
-        lo_ref = np.ascontiguousarray((i2 & 0xFF).astype(np.uint8)).view(
-            np.int16
-        )
-        assert np.array_equal(i2lo, lo_ref.reshape(W, c, r // 2))
-        if pack == "13b":
-            hb = (i2 >> 8).astype(np.uint16)
-            plane = (
-                (hb.reshape(W, c, -1, 16) << np.arange(16, dtype=np.uint16))
-                .sum(-1, dtype=np.uint16)
-                .view(np.int16)
-            )
-            assert np.array_equal(out[3], plane)
-        else:
-            assert r <= 256

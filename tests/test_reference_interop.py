@@ -40,8 +40,8 @@ SPEC_ELLS = [12, 60, 124]
 def _install_backend_shim():
     """Publish our exact host Fr/G1 as the `py_arkworks_bls12381` module the
     reference imports (surface per its stubs/__init__.pyi)."""
-    from curdleproofs_tpu.curve import G1, msm_host
-    from curdleproofs_tpu.fields import Fr
+    from curdleproofs_jax.curve import G1, msm_host
+    from curdleproofs_jax.fields import Fr
 
     class Scalar:
         __slots__ = ("f",)
@@ -165,9 +165,9 @@ def reference():
 
 def _shared_crs(reference, ell=ELL):
     """Build OUR CRS and the REFERENCE CRS from the same points."""
-    from curdleproofs_tpu.curve import G1
-    from curdleproofs_tpu.models.crs import CurdleproofsCrs
-    from curdleproofs_tpu.utils.rng import ProofRng
+    from curdleproofs_jax.curve import G1
+    from curdleproofs_jax.models.crs import CurdleproofsCrs
+    from curdleproofs_jax.utils.rng import ProofRng
 
     rng = ProofRng(101)
     gen = G1()
@@ -181,7 +181,7 @@ def _shared_crs(reference, ell=ELL):
 
 
 def _trackers(rng, make, ell=ELL):
-    from curdleproofs_tpu.curve import G1
+    from curdleproofs_jax.curve import G1
 
     gen = G1()
     out = []
@@ -196,7 +196,7 @@ def _trackers(rng, make, ell=ELL):
 
 @pytest.mark.parametrize("ell", SPEC_ELLS)
 def test_our_shuffle_proof_verifies_under_reference(reference, ell):
-    from curdleproofs_tpu.models.whisk import (
+    from curdleproofs_jax.models.whisk import (
         BLSPubkey,
         GenerateWhiskShuffleProof,
         WhiskTracker,
@@ -224,7 +224,7 @@ def test_our_shuffle_proof_verifies_under_reference(reference, ell):
 
 @pytest.mark.parametrize("ell", SPEC_ELLS)
 def test_reference_shuffle_proof_verifies_under_ours(reference, ell):
-    from curdleproofs_tpu.models.whisk import (
+    from curdleproofs_jax.models.whisk import (
         BLSPubkey,
         IsValidWhiskShuffleProof,
         WhiskTracker,
@@ -244,14 +244,14 @@ def test_reference_shuffle_proof_verifies_under_ours(reference, ell):
 
 
 def test_tracker_opening_proofs_cross_verify(reference):
-    from curdleproofs_tpu.curve import G1
-    from curdleproofs_tpu.models.whisk import (
+    from curdleproofs_jax.curve import G1
+    from curdleproofs_jax.models.whisk import (
         BLSPubkey,
         GenerateWhiskTrackerProof,
         IsValidWhiskOpeningProof,
         WhiskTracker,
     )
-    from curdleproofs_tpu.utils.rng import ProofRng
+    from curdleproofs_jax.utils.rng import ProofRng
 
     rng = ProofRng(202)
     k, r = rng.random_scalar(), rng.random_scalar()

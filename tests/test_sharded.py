@@ -6,10 +6,10 @@ import random
 import jax
 import pytest
 
-from curdleproofs_tpu.curve import G1, msm_host
-from curdleproofs_tpu.fields import FR_MOD, Fr
-from curdleproofs_tpu.parallel.mesh import make_mesh
-from curdleproofs_tpu.parallel.msm import msm_sharded
+from curdleproofs_jax.curve import G1, msm_host
+from curdleproofs_jax.fields import FR_MOD, Fr
+from curdleproofs_jax.parallel.mesh import make_mesh
+from curdleproofs_jax.parallel.msm import msm_sharded
 
 rng = random.Random(0x5A5A)
 
@@ -49,7 +49,7 @@ def test_sharded_msm_shard_invariance():
 @pytest.mark.parametrize("d", [2, 4])
 def test_sharded_stream_matches_oracle(d):
     """Streaming pipeline per shard + in-graph collective window combine."""
-    from curdleproofs_tpu.parallel.msm import msm_sharded_stream
+    from curdleproofs_jax.parallel.msm import msm_sharded_stream
 
     n = 32 * d + 5  # padding exercised
     pts, scs = rand_points(n), rand_scalars(n)
@@ -62,7 +62,7 @@ def test_sharded_stream_matches_oracle(d):
 
 @pytest.mark.parametrize("d", [2, 8])
 def test_sharded_ladder_matches_oracle(d):
-    from curdleproofs_tpu.parallel.msm import msm_sharded_ladder
+    from curdleproofs_jax.parallel.msm import msm_sharded_ladder
 
     rng = random.Random(5150)
     n = 16 * d + 3  # non-multiple of shard count; padding handles it
@@ -74,32 +74,45 @@ def test_sharded_ladder_matches_oracle(d):
 
 
 @pytest.mark.parametrize("d", [2, 4])
-def test_sharded_stream_sel_production_path(monkeypatch, d):
-    """The PRODUCTION sharded stream path (per-shard GLV + routed gather +
-    flagged sel scan, shared with the unsharded engine) forced on at small
-    size, vs the host oracle and shard-count invariance."""
-    from curdleproofs_tpu.ops import msm as omsm
-    from curdleproofs_tpu.ops import stream_scan as ostream
-    from curdleproofs_tpu.parallel import msm as pmsm
-    from curdleproofs_tpu.parallel.msm import msm_sharded_stream
+def test_sharded_stream_production_path(monkeypatch, d):
+    """The sharded stream path as production runs it: input sliced at
+    STREAM_SPLIT (forced small here), window bits picked per slice, every
+    slice's digit sort on the host and its device scan on its own mesh
+    device, slice results added on the host — vs the host oracle. The
+    profiling tags name the device each slice's result array was on: all
+    d devices."""
+    from curdleproofs_jax.ops import msm as omsm
+    from curdleproofs_jax.parallel.msm import msm_sharded_stream
+    from curdleproofs_jax.utils import profiling
 
-    monkeypatch.setattr(omsm, "ROUTE_MIN_N", 64)
-    monkeypatch.setattr(omsm, "ROUTE_MIN_FACTOR", 8)
-    monkeypatch.setattr(ostream, "_LANES", 32)
-    n = d * 120  # pads to local=128 per shard -> 256 GLV lanes
+    monkeypatch.setattr(omsm, "STREAM_SPLIT", 128 // d)
+    n = 250  # two slices of 128 pairs, the second padded
     pts, scs = rand_points(n), rand_scalars(n)
     pts[0] = G1.identity()
     scs[1] = Fr(0)
-    want = msm_host(pts, scs)
+    pts[130] = pts[129]  # duplicate base inside the second slice
+    mesh = make_mesh(d)
+    with profiling.collect() as reg:
+        got = msm_sharded_stream(pts, scs, mesh=mesh)
+        tags = {k for k in reg.report() if k.startswith("msm.shard.")}
+    assert got == msm_host(pts, scs)
+    assert tags == {f"msm.shard.{dev.id}" for dev in mesh.devices.flat}
 
-    calls = {"sel": 0}
-    orig = pmsm._sharded_stream_sel
 
-    def spy(*a, **k):
-        calls["sel"] += 1
-        return orig(*a, **k)
+def test_sharded_stream_slice_off_its_device_raises(monkeypatch):
+    """A slice whose programs run on another device than the one it was
+    given is an error, not a silent single-device run."""
+    from curdleproofs_jax.ops import msm as omsm
+    from curdleproofs_jax.parallel.msm import msm_sharded_stream
 
-    monkeypatch.setattr(pmsm, "_sharded_stream_sel", spy)
-    got = msm_sharded_stream(pts, scs, mesh=make_mesh(d), c=8)
-    assert got == want
-    assert calls["sel"] == 1, "production sel path must engage"
+    orig = omsm._msm_stream_impl
+    dev0 = jax.devices()[0]
+
+    def on_dev0(points, scalars_np, c, window_batch=None, device=None, _safe=False):
+        return orig(points, scalars_np, c, window_batch, dev0, _safe=_safe)
+
+    monkeypatch.setattr(omsm, "_msm_stream_impl", on_dev0)
+    n = 69
+    pts, scs = rand_points(n), rand_scalars(n)
+    with pytest.raises(RuntimeError, match="ran on"):
+        msm_sharded_stream(pts, scs, mesh=make_mesh(2), c=4)

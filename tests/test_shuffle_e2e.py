@@ -2,16 +2,16 @@
 Whisk byte-level API (reference test_curdleproofs.py:576-798 equivalents)."""
 import pytest
 
-from curdleproofs_tpu.curve import G1
-from curdleproofs_tpu.fields import Fr
-from curdleproofs_tpu.models.crs import CurdleproofsCrs
-from curdleproofs_tpu.models.shuffle import (
+from curdleproofs_jax.curve import G1
+from curdleproofs_jax.fields import Fr
+from curdleproofs_jax.models.crs import CurdleproofsCrs
+from curdleproofs_jax.models.shuffle import (
     N_BLINDERS,
     CurdleProofsProof,
     VerifierInput,
     shuffle_permute_and_commit_input,
 )
-from curdleproofs_tpu.models.whisk import (
+from curdleproofs_jax.models.whisk import (
     BLSPubkey,
     GenerateWhiskShuffleProof,
     GenerateWhiskTrackerProof,
@@ -19,9 +19,9 @@ from curdleproofs_tpu.models.whisk import (
     IsValidWhiskShuffleProof,
     WhiskTracker,
 )
-from curdleproofs_tpu.utils.errors import ProofError
-from curdleproofs_tpu.utils.rng import ProofRng
-from curdleproofs_tpu.utils.serde import BufReader
+from curdleproofs_jax.utils.errors import ProofError
+from curdleproofs_jax.utils.rng import ProofRng
+from curdleproofs_jax.utils.serde import BufReader
 
 N = 64
 ELL = N - N_BLINDERS
@@ -149,7 +149,7 @@ def test_serde_full_json_flow(shuffle_instance):
 
 
 def test_batched_verification(shuffle_instance):
-    from curdleproofs_tpu.models.shuffle import verify_shuffle_proofs
+    from curdleproofs_jax.models.shuffle import verify_shuffle_proofs
 
     crs, vec_R, vec_S, vec_T, vec_U, M, proof = shuffle_instance
     # a second independent proof over the same CRS
@@ -250,7 +250,7 @@ def test_whisk_tracker_proof_api():
 
 
 def test_whisk_batched_verification():
-    from curdleproofs_tpu.models.whisk import (
+    from curdleproofs_jax.models.whisk import (
         AreValidWhiskShuffleProofs,
         GenerateWhiskShuffleProof,
     )

@@ -7,8 +7,8 @@ the Rust implementation used by curdleproofs.
 """
 import pytest
 
-from curdleproofs_tpu.fields import FR_MOD, Fr
-from curdleproofs_tpu.transcript import (
+from curdleproofs_jax.fields import FR_MOD, Fr
+from curdleproofs_jax.transcript import (
     CurdleproofsTranscript,
     MerlinTranscript,
     Strobe128,
@@ -108,7 +108,7 @@ def test_challenge_stream_differs_by_label_and_content():
 def test_sponge_constructions_vs_hashlib():
     import hashlib
 
-    from curdleproofs_tpu.transcript import sponge
+    from curdleproofs_jax.transcript import sponge
 
     for data in (b"", b"abc", bytes(range(200)) * 2):
         assert sponge.sha3_256(data) == hashlib.sha3_256(data).digest()
@@ -123,7 +123,7 @@ def test_native_transcript_matches_python_twin(monkeypatch):
     """The C merlin/STROBE engine vs the pure-Python Strobe128 path on a
     mixed op sequence (writes, batch writes, byte reads, rejection-sampled
     scalar draws) — transcripts must be bit-identical."""
-    import curdleproofs_tpu.transcript.oracle as om
+    import curdleproofs_jax.transcript.oracle as om
 
     if not om._NATIVE:
         import pytest

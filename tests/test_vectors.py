@@ -1,11 +1,11 @@
-"""Unit tests for the vector-first value types (curdleproofs_tpu.vectors)
+"""Unit tests for the vector-first value types (curdleproofs_jax.vectors)
 against the exact host oracles."""
 import pytest
 
-from curdleproofs_tpu.curve import G1, g1_sum, msm_host
-from curdleproofs_tpu.fields import FR_MOD, Fr
-from curdleproofs_tpu.utils.rng import ProofRng
-from curdleproofs_tpu.vectors import PointVec, ScalarVec, as_points, as_scalars
+from curdleproofs_jax.curve import G1, g1_sum, msm_host
+from curdleproofs_jax.fields import FR_MOD, Fr
+from curdleproofs_jax.utils.rng import ProofRng
+from curdleproofs_jax.vectors import PointVec, ScalarVec, as_points, as_scalars
 
 
 @pytest.fixture

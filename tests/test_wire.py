@@ -5,20 +5,20 @@ import math
 
 import pytest
 
-from curdleproofs_tpu.curve import G1
-from curdleproofs_tpu.fields import Fr
-from curdleproofs_tpu.models.crs import CurdleproofsCrs
-from curdleproofs_tpu.models.opening import TrackerOpeningProof
-from curdleproofs_tpu.models.shuffle import (
+from curdleproofs_jax.curve import G1
+from curdleproofs_jax.fields import Fr
+from curdleproofs_jax.models.crs import CurdleproofsCrs
+from curdleproofs_jax.models.opening import TrackerOpeningProof
+from curdleproofs_jax.models.shuffle import (
     N_BLINDERS,
     CurdleProofsProof,
     shuffle_permute_and_commit_input,
 )
-from curdleproofs_tpu.models.whisk import WhiskShuffleProof
-from curdleproofs_tpu.transcript.oracle import Transcript
-from curdleproofs_tpu.utils.errors import SerdeError
-from curdleproofs_tpu.utils.rng import ProofRng
-from curdleproofs_tpu.utils.serde import BufReader
+from curdleproofs_jax.models.whisk import WhiskShuffleProof
+from curdleproofs_jax.transcript.oracle import Transcript
+from curdleproofs_jax.utils.errors import SerdeError
+from curdleproofs_jax.utils.rng import ProofRng
+from curdleproofs_jax.utils.serde import BufReader
 
 ELL = 12
 N = ELL + N_BLINDERS
@@ -97,7 +97,7 @@ def test_wire_fuzz_corruption_is_typed(proof_bytes):
     unhandled exception type (the Whisk bool wrappers rely on this)."""
     import random
 
-    from curdleproofs_tpu.utils.errors import ProofError
+    from curdleproofs_jax.utils.errors import ProofError
 
     rng = random.Random(99)
     for _ in range(60):
